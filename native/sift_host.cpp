@@ -1,29 +1,31 @@
-// Host-side native runtime for sift_parallel_optimization_tpu.
+// Host-side native runtime for sift_parallel_optimization.
 //
 // The reference is an all-C++ project whose runtime is its drivers: frame
 // synthesis (main.cpp:27-35, mpitest.cpp:497-505), wall-clock harnesses
 // (main.cpp:60-74, GaussDePyramid-pThread.h:310-326) and pthread worker
-// management (GaussDePyramid-pThread.h:176-188). On TPU the COMPUTE moves
-// into XLA/Pallas, but the host side of the pipeline — producing/decoding
+// management (GaussDePyramid-pThread.h:176-188). Here the COMPUTE moves
+// into XLA on the accelerator, but the host side of the pipeline — producing/decoding
 // frames fast enough to keep the device fed, and precise timing — stays
 // native. This library provides:
 //
 //   * PGM (P5/P2) image read/write — zero-dependency grayscale I/O.
-//   * PPM (P6/P3) and PNG read (system libpng), Rec.601 luma to grayscale
-//     — real-dataset sequences (TUM/KITTI-style directories) decode
-//     through the same native path as the synthetic benchmarks.
+//   * PPM (P6/P3) and PNG read (system libpng, when its headers exist at
+//     build time), Rec.601 luma to grayscale — real-dataset sequences
+//     (TUM/KITTI-style directories) decode through the same native path
+//     as the synthetic benchmarks.
 //   * Deterministic synthetic frame generation (blob field + value noise),
 //     the test/bench workload generator (replaces the reference's constant
 //     image, which SURVEY.md section 4 flags as hiding real bugs).
 //   * A multithreaded prefetching ring loader: N worker pthreads fill a
 //     ring of frame buffers ahead of the consumer — host-side double
-//     buffering that mirrors the device-side DMA pipelining pattern, and
-//     the TPU-era descendant of the reference's pthread worker pool.
+//     buffering that overlaps frame production with device compute, the
+//     descendant of the reference's pthread worker pool.
 //   * Monotonic ms clock for steady-state benchmark loops.
 //
 // Exposed as a C ABI for ctypes (no pybind11 in this environment).
 
 #include <atomic>
+#include <cctype>
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
@@ -36,7 +38,9 @@
 #include <vector>
 #include <chrono>
 
+#ifdef SIFT_HAVE_PNG
 #include <png.h>
+#endif
 
 namespace {
 
@@ -272,6 +276,16 @@ int sift_read_ppm(const char* path, float* out, int* w, int* h,
     return 0;
 }
 
+// 1 when this build has PNG I/O (libpng's headers were found), else 0.
+int sift_has_png() {
+#ifdef SIFT_HAVE_PNG
+    return 1;
+#else
+    return 0;
+#endif
+}
+
+#ifdef SIFT_HAVE_PNG
 // Reads any PNG (gray/RGB/RGBA, 8/16-bit) as 8-bit grayscale via libpng's
 // simplified API (libpng handles the colortype conversion). Returns 0 on
 // success.
@@ -318,6 +332,11 @@ int sift_write_png(const char* path, const float* img, int w, int h) {
         return -1;
     return 0;
 }
+#else
+// Built without libpng: PNG I/O reports failure (see sift_has_png).
+int sift_read_png(const char*, float*, int*, int*, long) { return -7; }
+int sift_write_png(const char*, const float*, int, int) { return -7; }
+#endif
 
 // ---------------------------------------------------------------------------
 // Synthetic frames

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.models.sfm import empty_map
-from sift_parallel_optimization_tpu.utils import checkpoint as ckpt
+from sift_parallel_optimization.models.sfm import empty_map
+from sift_parallel_optimization.utils import checkpoint as ckpt
 
 
 def test_roundtrip_pytree(tmp_path, rng):
@@ -51,7 +51,7 @@ def test_sfm_resume(tmp_path, rng):
         _make_features(rng, pts, descs, rvecs[i], tvecs[i], 160)
         for i in range(n_frames)
     ]
-    from sift_parallel_optimization_tpu.models.sfm import run_sfm
+    from sift_parallel_optimization.models.sfm import run_sfm
 
     d = str(tmp_path / "sfm_ck")
     full = run_sfm(

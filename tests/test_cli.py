@@ -5,8 +5,8 @@ import json
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.cli import main
-from sift_parallel_optimization_tpu.utils import native
+from sift_parallel_optimization.cli import main
+from sift_parallel_optimization.utils import native
 
 
 def test_features_synthetic(capsys):
@@ -59,7 +59,7 @@ def test_bench_matching_writes_jsonl(tmp_path):
 def test_cli_pair_selection_flag(tmp_path):
     """--pair-selection covisibility runs the table-driven SfM driver
     end-to-end through the CLI (rendered frames, tiny)."""
-    from sift_parallel_optimization_tpu.utils import native
+    from sift_parallel_optimization.utils import native
 
     if not native.available():
         pytest.skip("native renderer unavailable")

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.core.pyramid_ref import (
+from sift_parallel_optimization.core.pyramid_ref import (
     reference_dog_pyramid,
 )
 

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import sift_parallel_optimization_tpu.models.descriptor as D
-from sift_parallel_optimization_tpu.models.detect import detect_pyramid
-from sift_parallel_optimization_tpu.models.frontend import sift_config
-from sift_parallel_optimization_tpu.core.pyramid_ref import sift_dog_pyramid
+import sift_parallel_optimization.models.descriptor as D
+from sift_parallel_optimization.models.detect import detect_pyramid
+from sift_parallel_optimization.models.frontend import sift_config
+from sift_parallel_optimization.core.pyramid_ref import sift_dog_pyramid
 
 
 def test_resample_matches_bilinear_reference(rng):
@@ -66,7 +66,7 @@ def test_detection_scale_invariance(rng):
 def test_dual_orientation_duplicates(rng):
     """Lowe 80% mode doubles capacity; duplicates share position/sigma and
     carry a different orientation with a unit-norm descriptor."""
-    from sift_parallel_optimization_tpu.models.frontend import (
+    from sift_parallel_optimization.models.frontend import (
         extract_features,
     )
 

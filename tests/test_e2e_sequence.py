@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.models.ba import rms_error
-from sift_parallel_optimization_tpu.models.frontend import (
+from sift_parallel_optimization.models.ba import rms_error
+from sift_parallel_optimization.models.frontend import (
     extract_features,
     sift_config,
 )
-from sift_parallel_optimization_tpu.models.sfm import run_sfm
-from sift_parallel_optimization_tpu.utils import native
-from sift_parallel_optimization_tpu.utils.trajectory import (
+from sift_parallel_optimization.models.sfm import run_sfm
+from sift_parallel_optimization.utils import native
+from sift_parallel_optimization.utils.trajectory import (
     ate_rmse,
     camera_centers,
 )

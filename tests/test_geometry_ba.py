@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sift_parallel_optimization_tpu.models.ba import (
+from sift_parallel_optimization.models.ba import (
     BAState,
     Observations,
     bundle_adjust,
@@ -13,7 +13,7 @@ from sift_parallel_optimization_tpu.models.ba import (
     robust_cost,
     rms_error,
 )
-from sift_parallel_optimization_tpu.models.geometry import (
+from sift_parallel_optimization.models.geometry import (
     Camera,
     decompose_essential,
     essential_from_fundamental,
@@ -272,7 +272,7 @@ class TestImplicitSchurCG:
     """The scalable BA path: analytic Jacobians + implicit-Schur CG."""
 
     def test_analytic_jacobians_match_jacfwd(self, rng):
-        from sift_parallel_optimization_tpu.models.ba import (
+        from sift_parallel_optimization.models.ba import (
             _analytic_jacobians,
             _obs_jacobians,
         )

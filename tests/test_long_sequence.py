@@ -19,17 +19,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.models.odometry import run_odometry
+from sift_parallel_optimization.models.odometry import run_odometry
 
 
 def _render_cycles(size, n_frames, period):
     """Triangle-wave revisit trajectory: out to apex at period/2, back,
     repeat — every cycle after the first revisits archived places."""
-    from sift_parallel_optimization_tpu.models.frontend import (
+    from sift_parallel_optimization.models.frontend import (
         extract_features,
         sift_config,
     )
-    from sift_parallel_optimization_tpu.utils import native
+    from sift_parallel_optimization.utils import native
 
     if not native.available():
         pytest.skip("native renderer unavailable")
@@ -62,7 +62,7 @@ def _render_cycles(size, n_frames, period):
 
 
 def _ates(feats, K, gt_rvecs, gt_tvecs, window, **loop_kw):
-    from sift_parallel_optimization_tpu.utils.trajectory import (
+    from sift_parallel_optimization.utils.trajectory import (
         ate_rmse,
         camera_centers,
     )
@@ -113,7 +113,7 @@ def test_120_frame_three_cycle_revisit():
         return_info=True,
     )
     assert info_c["loops_dropped"] == 0, info_c
-    from sift_parallel_optimization_tpu.utils.trajectory import (
+    from sift_parallel_optimization.utils.trajectory import (
         ate_rmse,
         camera_centers,
     )
@@ -138,7 +138,7 @@ def test_500_frame_endurance(tmp_path):
     compose (5 checkpoints land)."""
     n, period, window = 500, 40, 6
     feats, K, gt_rvecs, gt_tvecs = _render_cycles(256, n, period)
-    from sift_parallel_optimization_tpu.utils.trajectory import (
+    from sift_parallel_optimization.utils.trajectory import (
         ate_rmse,
         camera_centers,
     )

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sift_parallel_optimization_tpu.models.matching import (
+from sift_parallel_optimization.models.matching import (
     match_descriptors,
     matched_points,
     ransac_fundamental,
@@ -12,7 +12,7 @@ from sift_parallel_optimization_tpu.models.matching import (
     _apply_h,
     _epipolar_dist_sq,
 )
-from sift_parallel_optimization_tpu.models.frontend import (
+from sift_parallel_optimization.models.frontend import (
     extract_features,
     sift_config,
 )

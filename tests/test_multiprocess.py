@@ -36,11 +36,11 @@ _WORKER = textwrap.dedent(
     )
     import jax.numpy as jnp, numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    from sift_parallel_optimization_tpu.models.ba import (
+    from sift_parallel_optimization.models.ba import (
         BAState, Observations, rms_error,
     )
-    from sift_parallel_optimization_tpu.models.geometry import project
-    from sift_parallel_optimization_tpu.parallel.ba import (
+    from sift_parallel_optimization.models.geometry import project
+    from sift_parallel_optimization.parallel.ba import (
         distributed_bundle_adjust, pad_observations,
     )
 
@@ -107,11 +107,11 @@ _WORKER4 = textwrap.dedent(
     )
     import jax.numpy as jnp, numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    from sift_parallel_optimization_tpu.models.ba import (
+    from sift_parallel_optimization.models.ba import (
         BAState, Observations, rms_error,
     )
-    from sift_parallel_optimization_tpu.models.geometry import project
-    from sift_parallel_optimization_tpu.parallel.ba import (
+    from sift_parallel_optimization.models.geometry import project
+    from sift_parallel_optimization.parallel.ba import (
         distributed_bundle_adjust, pad_observations,
     )
 
@@ -161,13 +161,13 @@ _WORKER4 = textwrap.dedent(
     # Row-sharded SIFT pyramid: ppermute halo exchange across the 4
     # process boundaries; compare against the replicated single-device
     # path inside one program (the diff is a replicated scalar).
-    from sift_parallel_optimization_tpu.config import (
+    from sift_parallel_optimization.config import (
         PyramidConfig, ScaleSpaceMode,
     )
-    from sift_parallel_optimization_tpu.core.pyramid_ref import (
+    from sift_parallel_optimization.core.pyramid_ref import (
         sift_gaussian_pyramid,
     )
-    from sift_parallel_optimization_tpu.parallel.scale_space import (
+    from sift_parallel_optimization.parallel.scale_space import (
         sharded_sift_gaussian_pyramid,
     )
 

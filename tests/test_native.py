@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.utils import native
+from sift_parallel_optimization.utils import native
 
 
 pytestmark = pytest.mark.skipif(

@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.models.ba import Observations
-from sift_parallel_optimization_tpu.models.odometry import (
+from sift_parallel_optimization.models.ba import Observations
+from sift_parallel_optimization.models.odometry import (
     archive_evicted_block,
     empty_archive,
     run_odometry,
     shift_window,
 )
-from sift_parallel_optimization_tpu.models.sfm import SfmMap, empty_map
+from sift_parallel_optimization.models.sfm import SfmMap, empty_map
 
 
 def _toy_map(W=3, B=2):
@@ -47,8 +47,8 @@ def test_harvest_anchors_freezes_evicted_block_observations():
     cameras become fixed-landmark anchors with the landmarks' frozen
     positions and shifted camera indices; old anchors expire with their
     camera; everything stays inside the fixed capacity."""
-    from sift_parallel_optimization_tpu.models.ba import empty_anchors
-    from sift_parallel_optimization_tpu.models.odometry import (
+    from sift_parallel_optimization.models.ba import empty_anchors
+    from sift_parallel_optimization.models.odometry import (
         harvest_anchors,
     )
 
@@ -103,12 +103,12 @@ def test_harvest_anchors_freezes_evicted_block_observations():
 def test_anchor_factors_pull_camera_back():
     """BA with anchors only (no live landmarks' worth of signal) must
     correct a perturbed camera against the frozen points."""
-    from sift_parallel_optimization_tpu.models.ba import (
+    from sift_parallel_optimization.models.ba import (
         Anchors,
         BAState,
         bundle_adjust,
     )
-    from sift_parallel_optimization_tpu.models.geometry import project
+    from sift_parallel_optimization.models.geometry import project
 
     rng = np.random.default_rng(0)
     K = jnp.array([[200.0, 0, 64], [0, 200.0, 64], [0, 0, 1]], jnp.float32)
@@ -174,7 +174,7 @@ def test_coverage_eviction_is_age_stratified():
     co-located old pair."""
     from types import SimpleNamespace
 
-    from sift_parallel_optimization_tpu.models.odometry import (
+    from sift_parallel_optimization.models.odometry import (
         coverage_write_slot,
         empty_archive,
     )
@@ -248,13 +248,13 @@ def test_lm_with_anchors_is_anchor_aware():
     anchor path at all). Camera 1 is constrained ONLY by anchors, so an
     anchor-blind LM cannot correct it; robust_cost(anchors=...) is the
     objective the loop must monotonically decrease."""
-    from sift_parallel_optimization_tpu.models.ba import (
+    from sift_parallel_optimization.models.ba import (
         Anchors,
         BAState,
         bundle_adjust_lm,
         robust_cost,
     )
-    from sift_parallel_optimization_tpu.models.geometry import project
+    from sift_parallel_optimization.models.geometry import project
 
     rng = np.random.default_rng(0)
     K = jnp.array([[200.0, 0, 64], [0, 200.0, 64], [0, 0, 1]], jnp.float32)
@@ -386,7 +386,7 @@ def test_archive_ring_writes_and_wraps():
 def test_loop_buffer_accept_semantics():
     """Device-side acceptance: threshold, cooldown, capacity, and the
     dropped-counter all behave like the round-3 host-side gate did."""
-    from sift_parallel_optimization_tpu.models.odometry import (
+    from sift_parallel_optimization.models.odometry import (
         ArchiveLoop,
         accept_loop_proposal,
         empty_loop_buffer,
@@ -426,11 +426,11 @@ class TestRenderedOdometry:
 
     @pytest.fixture(scope="class")
     def sequence(self):
-        from sift_parallel_optimization_tpu.models.frontend import (
+        from sift_parallel_optimization.models.frontend import (
             extract_features,
             sift_config,
         )
-        from sift_parallel_optimization_tpu.utils import native
+        from sift_parallel_optimization.utils import native
 
         if not native.available():
             pytest.skip("native renderer unavailable")
@@ -459,7 +459,7 @@ class TestRenderedOdometry:
 
     @pytest.mark.slow
     def test_windowed_ate_bounded(self, sequence):
-        from sift_parallel_optimization_tpu.utils.trajectory import (
+        from sift_parallel_optimization.utils.trajectory import (
             ate_rmse,
             camera_centers,
         )
@@ -485,7 +485,7 @@ class TestRenderedOdometry:
     def test_full_window_matches_global_sfm_class(self, sequence):
         """window >= n never evicts: accuracy should match plain SfM's
         gate (same map capacity story as run_sfm without loop closure)."""
-        from sift_parallel_optimization_tpu.utils.trajectory import (
+        from sift_parallel_optimization.utils.trajectory import (
             ate_rmse,
             camera_centers,
         )
@@ -510,11 +510,11 @@ class TestWindowedLoopClosure:
 
     @pytest.fixture(scope="class")
     def sequence(self):
-        from sift_parallel_optimization_tpu.models.frontend import (
+        from sift_parallel_optimization.models.frontend import (
             extract_features,
             sift_config,
         )
-        from sift_parallel_optimization_tpu.utils import native
+        from sift_parallel_optimization.utils import native
 
         if not native.available():
             pytest.skip("native renderer unavailable")
@@ -560,7 +560,7 @@ class TestWindowedLoopClosure:
           even WITH anchors (tests/test_long_sequence.py gates the
           120-frame three-cycle at >= 1.8x with anchors on).
         """
-        from sift_parallel_optimization_tpu.utils.trajectory import (
+        from sift_parallel_optimization.utils.trajectory import (
             ate_rmse,
             camera_centers,
         )
@@ -602,7 +602,7 @@ class TestWindowedLoopClosure:
         the uninterrupted run (failure recovery for the driver whose
         whole point is sequences of any length). The archive ring, loop
         buffer, frozen poses, and used-mask all ride the checkpoint."""
-        from sift_parallel_optimization_tpu.utils import checkpoint as ck
+        from sift_parallel_optimization.utils import checkpoint as ck
 
         feats, K, gt_rvecs, gt_tvecs = sequence
         kw = dict(window=self.window, loop_closure=True)
@@ -653,14 +653,14 @@ def test_odometry_stream_matches_batch():
     trajectory on the same features. n is chosen with
     (n-1) % ba_every == 0 so the final-frame BA aligns (the one place
     the batch driver uses its knowledge of n)."""
-    from sift_parallel_optimization_tpu.models.frontend import (
+    from sift_parallel_optimization.models.frontend import (
         extract_features,
         sift_config,
     )
-    from sift_parallel_optimization_tpu.models.odometry import (
+    from sift_parallel_optimization.models.odometry import (
         OdometryStream,
     )
-    from sift_parallel_optimization_tpu.utils import native
+    from sift_parallel_optimization.utils import native
 
     if not native.available():
         pytest.skip("native renderer unavailable")
@@ -706,14 +706,14 @@ def test_odometry_stream_matches_batch():
 def test_odometry_stream_short_sequences():
     """OdometryStream degrades gracefully below the window size: 1 frame
     (identity pose), 2 frames (bootstrap pair), W-1 frames (fill only)."""
-    from sift_parallel_optimization_tpu.models.frontend import (
+    from sift_parallel_optimization.models.frontend import (
         extract_features,
         sift_config,
     )
-    from sift_parallel_optimization_tpu.models.odometry import (
+    from sift_parallel_optimization.models.odometry import (
         OdometryStream,
     )
-    from sift_parallel_optimization_tpu.utils import native
+    from sift_parallel_optimization.utils import native
 
     if not native.available():
         pytest.skip("native renderer unavailable")

@@ -7,18 +7,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sift_parallel_optimization_tpu.models.ba import (
+from sift_parallel_optimization.models.ba import (
     BAState,
     Observations,
     bundle_adjust,
     rms_error,
 )
-from sift_parallel_optimization_tpu.models.geometry import project
-from sift_parallel_optimization_tpu.parallel.ba import (
+from sift_parallel_optimization.models.geometry import project
+from sift_parallel_optimization.parallel.ba import (
     distributed_bundle_adjust,
     pad_observations,
 )
-from sift_parallel_optimization_tpu.parallel.mesh import make_mesh
+from sift_parallel_optimization.parallel.mesh import make_mesh
 
 K = jnp.array([[400.0, 0, 160], [0, 400.0, 120], [0, 0, 1]])
 

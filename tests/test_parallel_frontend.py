@@ -4,14 +4,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sift_parallel_optimization_tpu.models.frontend import (
+from sift_parallel_optimization.models.frontend import (
     extract_features,
     sift_config,
 )
-from sift_parallel_optimization_tpu.parallel.frontend import (
+from sift_parallel_optimization.parallel.frontend import (
     batched_extract_features,
 )
-from sift_parallel_optimization_tpu.parallel.mesh import make_mesh
+from sift_parallel_optimization.parallel.mesh import make_mesh
 
 
 def _frames(rng, b, size):

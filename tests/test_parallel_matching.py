@@ -12,14 +12,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.models.matching import (
+from sift_parallel_optimization.models.matching import (
     match_descriptors,
 )
-from sift_parallel_optimization_tpu.parallel.matching import (
+from sift_parallel_optimization.parallel.matching import (
     ring_pairwise_match_counts,
     select_covisible_pairs,
 )
-from sift_parallel_optimization_tpu.parallel.mesh import make_mesh
+from sift_parallel_optimization.parallel.mesh import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -92,11 +92,11 @@ def test_select_covisible_pairs(mesh, rng):
 
 
 def test_ring_ici_bytes_model():
-    from sift_parallel_optimization_tpu.bench.roofline import (
-        ring_matching_ici_bytes,
+    from sift_parallel_optimization.bench.roofline import (
+        ring_matching_comm_bytes,
     )
 
-    b = ring_matching_ici_bytes(64, 512, 8)
+    b = ring_matching_comm_bytes(64, 512, 8)
     # 8 frames/device * 512 kp * (512 + 1) bytes * 8 steps ~ 16.8 MB.
     assert 10e6 < b < 30e6
 
@@ -107,7 +107,7 @@ def test_pairwise_match_counts_single_device(rng=None):
     desc, valid = _fake_keyframes(rng, F=6, K=40)
     table = jax.jit(
         __import__(
-            "sift_parallel_optimization_tpu.parallel.matching",
+            "sift_parallel_optimization.parallel.matching",
             fromlist=["pairwise_match_counts"],
         ).pairwise_match_counts
     )(desc, valid)
@@ -119,7 +119,7 @@ def test_pairwise_match_counts_single_device(rng=None):
 def test_covisibility_order_spanning_tree():
     """Greedy MST plan: every frame's partner is registered before it,
     the strongest pair bootstraps, and partners are covisible."""
-    from sift_parallel_optimization_tpu.parallel.matching import (
+    from sift_parallel_optimization.parallel.matching import (
         covisibility_order,
     )
 

@@ -14,14 +14,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.config import PyramidConfig, ScaleSpaceMode
-from sift_parallel_optimization_tpu.core.pyramid_ref import (
+from sift_parallel_optimization.config import PyramidConfig, ScaleSpaceMode
+from sift_parallel_optimization.core.pyramid_ref import (
     reference_dog_octave,
     reference_dog_pyramid,
     sift_gaussian_pyramid,
 )
-from sift_parallel_optimization_tpu.parallel.mesh import make_mesh
-from sift_parallel_optimization_tpu.parallel.scale_space import (
+from sift_parallel_optimization.parallel.mesh import make_mesh
+from sift_parallel_optimization.parallel.scale_space import (
     scale_sharded_reference_dog_octave,
     sharded_reference_dog_octave,
     sharded_reference_dog_pyramid,
@@ -98,7 +98,7 @@ def test_sift_sharded_pyramid_matches(mesh, rng):
 def test_octave_sharded_pyramid_matches(mesh, rng):
     # Device d owns octave d (8 octaves of a 128-image over 8 devices) —
     # the reference's pthread round-robin octave split, zero communication.
-    from sift_parallel_optimization_tpu.parallel.scale_space import (
+    from sift_parallel_optimization.parallel.scale_space import (
         octave_sharded_reference_dog_pyramid,
     )
 

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sift_parallel_optimization_tpu.models.geometry import rodrigues, rotation_log
-from sift_parallel_optimization_tpu.models.pose_graph import (
+from sift_parallel_optimization.models.geometry import rodrigues, rotation_log
+from sift_parallel_optimization.models.pose_graph import (
     PoseGraphEdges,
     Poses,
     optimize_pose_graph,
@@ -153,7 +153,7 @@ def test_thousand_node_graph_converges(rng):
     """A 1,000-node chain + loop closures (the product of long-sequence
     odometry) — far out of the dense (N, N, 6, 6) solver's reach; the CG
     path must converge. 'auto' resolves to cg above PGO_DENSE_LIMIT."""
-    from sift_parallel_optimization_tpu.models.pose_graph import (
+    from sift_parallel_optimization.models.pose_graph import (
         resolve_pgo_solver,
     )
 
@@ -185,8 +185,8 @@ def test_thousand_node_graph_converges(rng):
 
 
 def test_distributed_pgo_matches_single(rng):
-    from sift_parallel_optimization_tpu.parallel.mesh import make_mesh
-    from sift_parallel_optimization_tpu.parallel.pose_graph import (
+    from sift_parallel_optimization.parallel.mesh import make_mesh
+    from sift_parallel_optimization.parallel.pose_graph import (
         distributed_pgo,
     )
 
@@ -239,7 +239,7 @@ def test_thousand_node_chain_solver(rng):
     """1,000-node chain + loops through the exact O(N) chain solver:
     same graph as the CG test, length-scaled damping, and 'auto' takes
     the chain path when the caller vouches an off-chain cap."""
-    from sift_parallel_optimization_tpu.models.pose_graph import (
+    from sift_parallel_optimization.models.pose_graph import (
         chain_damping,
         resolve_pgo_solver,
     )

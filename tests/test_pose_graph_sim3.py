@@ -11,13 +11,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sift_parallel_optimization_tpu.models.pose_graph import (
+from sift_parallel_optimization.models.pose_graph import (
     PoseGraphEdges,
     Poses,
     optimize_pose_graph,
     relative_pose,
 )
-from sift_parallel_optimization_tpu.models.pose_graph_sim3 import (
+from sift_parallel_optimization.models.pose_graph_sim3 import (
     Sim3Edges,
     Sim3Poses,
     measured_rel_log_s,
@@ -26,7 +26,7 @@ from sift_parallel_optimization_tpu.models.pose_graph_sim3 import (
     sim3_rms,
     sim3_to_se3_poses,
 )
-from sift_parallel_optimization_tpu.utils.trajectory import (
+from sift_parallel_optimization.utils.trajectory import (
     ate_rmse,
     camera_centers,
 )
@@ -46,7 +46,7 @@ def _drifted_chain(n=12, per_edge_scale=1.06, seed=0):
     # Integrate drifted odometry: each true relative step scaled.
     est_r = [gt_r[0]]
     est_t = [gt_t[0]]
-    from sift_parallel_optimization_tpu.models.geometry import (
+    from sift_parallel_optimization.models.geometry import (
         rodrigues,
         rotation_log,
     )
@@ -199,7 +199,7 @@ def test_sim3_dense_cg_fixed_point():
 
 
 def test_sim3_auto_dispatch_thresholds():
-    from sift_parallel_optimization_tpu.models.pose_graph_sim3 import (
+    from sift_parallel_optimization.models.pose_graph_sim3 import (
         SIM3_DENSE_LIMIT,
         resolve_sim3_solver,
     )
@@ -215,7 +215,7 @@ def test_sim3_auto_dispatch_thresholds():
 def test_sim3_dense_chain_step_equivalence():
     """The chain+Woodbury solver is EXACT: a single GN step matches the
     dense (7N, 7N) solve to solver round-off, loop edges included."""
-    from sift_parallel_optimization_tpu.models.pose_graph_sim3 import (
+    from sift_parallel_optimization.models.pose_graph_sim3 import (
         sim3_step,
     )
 
@@ -275,7 +275,7 @@ def test_sim3_thousand_node_scale_ramp_chain():
     gt_r = (0.01 * rng.normal(size=(n, 3))).astype(np.float32)
     gt = Poses(rvecs=jnp.asarray(gt_r), tvecs=jnp.asarray(gt_t))
 
-    from sift_parallel_optimization_tpu.models.geometry import (
+    from sift_parallel_optimization.models.geometry import (
         rodrigues,
         rotation_log,
     )
@@ -340,7 +340,7 @@ def test_sim3_thousand_node_scale_ramp_chain():
     # "auto" + a host-known loop cap at n=1000 takes the chain solver
     # (the dense solve is out of memory reach); damping scales with
     # length (chain_damping) — jit exactly as correct_trajectory does.
-    from sift_parallel_optimization_tpu.models.pose_graph_sim3 import (
+    from sift_parallel_optimization.models.pose_graph_sim3 import (
         chain_damping,
     )
 

@@ -4,7 +4,7 @@ import json
 
 import jax.numpy as jnp
 
-from sift_parallel_optimization_tpu.utils.profiling import (
+from sift_parallel_optimization.utils.profiling import (
     MetricsWriter,
     chained_slope_ms,
     steady_state_ms,

@@ -10,17 +10,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sift_parallel_optimization_tpu.config import (
+from sift_parallel_optimization.config import (
     PyramidConfig,
     ScaleSpaceMode,
     num_octaves,
     octave_sizes,
 )
-from sift_parallel_optimization_tpu.core.numpy_golden import (
+from sift_parallel_optimization.core.numpy_golden import (
     golden_dog_pyramid,
     golden_filter,
 )
-from sift_parallel_optimization_tpu.core.pyramid_ref import (
+from sift_parallel_optimization.core.pyramid_ref import (
     gaussian_kernel_1d,
     reference_dog_pyramid,
     reference_filter_bank,
@@ -136,7 +136,7 @@ def test_sift_pyramid_blur_monotone(rng):
 
 
 def test_blur_precision_knob(rng):
-    # The knob only changes TPU matmul pass counts; on CPU every precision
+    # The knob only changes accelerator matmul passes; on CPU every precision
     # computes identical f32 values, so the plumbing must be value-neutral.
     img = jnp.asarray(rng.random((32, 32)).astype(np.float32))
     out = {}
@@ -159,7 +159,7 @@ def test_banded_blur_matches_dense(rng):
     # blur_bank dispatches to the blocked-band form at >= 512^2; the band
     # blocks hold exactly the dense matrices' nonzeros, so results must
     # match the dense einsums up to f32 summation order.
-    from sift_parallel_optimization_tpu.core.pyramid_ref import (
+    from sift_parallel_optimization.core.pyramid_ref import (
         _BANDED_MIN_SIZE,
         _octave_scale_sigmas,
         blur_bank,
@@ -173,7 +173,7 @@ def test_banded_blur_matches_dense(rng):
     banded = blur_bank_banded(img, sigmas)
     # Dense reference: bypass the dispatch by using a non-multiple-of-64
     # width slice is not comparable; instead build the dense einsum inline.
-    from sift_parallel_optimization_tpu.core.pyramid_ref import blur_matrix
+    from sift_parallel_optimization.core.pyramid_ref import blur_matrix
 
     bank = jnp.stack([blur_matrix(size, s) for s in sigmas])
     tmp = jnp.einsum("hw,swv->shv", img, bank,
@@ -195,7 +195,7 @@ def test_banded_blur_rectangular_matches_dense(h, w, rng):
     # 64-multiple; the band path zero-pads to its block grid) — must
     # take the MXU band path on BOTH axes; round 3 silently fell back
     # to dense (N, N) blur matrices whenever h != w.
-    from sift_parallel_optimization_tpu.core.pyramid_ref import (
+    from sift_parallel_optimization.core.pyramid_ref import (
         _octave_scale_sigmas,
         blur_bank,
         blur_bank_banded,
@@ -223,7 +223,7 @@ def test_banded_blur_rectangular_matches_dense(h, w, rng):
 
 
 def test_banded_blur_jits(rng):
-    from sift_parallel_optimization_tpu.core.pyramid_ref import (
+    from sift_parallel_optimization.core.pyramid_ref import (
         sift_gaussian_pyramid as spy,
     )
 

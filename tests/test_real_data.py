@@ -3,7 +3,7 @@
 
 The reference has no image or dataset I/O at all (SURVEY.md section 4: its
 input is a synthetic constant array). This suite gates the full
-real-data path of the TPU framework: PNG/PPM decode through the native
+real-data path of the engine: PNG/PPM decode through the native
 layer (native/sift_host.cpp), a TUM-format trajectory loader/writer with
 timestamp association (utils/trajectory.py), and the `cli sfm --image-dir
 --groundtruth` pipeline reporting ATE on an on-disk sequence.
@@ -18,7 +18,7 @@ files onward.
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.utils import native
+from sift_parallel_optimization.utils import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable"
@@ -72,7 +72,7 @@ class TestImageIO:
 
 class TestTumFormat:
     def test_save_load_roundtrip(self, tmp_path, rng):
-        from sift_parallel_optimization_tpu.utils.trajectory import (
+        from sift_parallel_optimization.utils.trajectory import (
             camera_centers,
             load_tum,
             save_tum,
@@ -92,10 +92,10 @@ class TestTumFormat:
         )
         np.testing.assert_allclose(centers, expect, atol=1e-4)
         # Quaternions are unit and reproduce the rotations.
-        from sift_parallel_optimization_tpu.utils.trajectory import (
+        from sift_parallel_optimization.utils.trajectory import (
             quat_to_rotmat,
         )
-        from sift_parallel_optimization_tpu.models.geometry import rodrigues
+        from sift_parallel_optimization.models.geometry import rodrigues
 
         r_wc = np.asarray(quat_to_rotmat(quats))
         r_expected = np.swapaxes(np.asarray(rodrigues(jnp.asarray(rvecs))),
@@ -103,7 +103,7 @@ class TestTumFormat:
         np.testing.assert_allclose(r_wc, r_expected, atol=1e-4)
 
     def test_associate_protocol(self):
-        from sift_parallel_optimization_tpu.utils.trajectory import associate
+        from sift_parallel_optimization.utils.trajectory import associate
 
         ts_a = [0.0, 1.0, 2.0, 3.0]
         ts_b = [0.005, 1.5, 2.996, 3.004]
@@ -112,7 +112,7 @@ class TestTumFormat:
         assert list(ib) == [0, 3]
 
     def test_load_rejects_garbage(self, tmp_path):
-        from sift_parallel_optimization_tpu.utils.trajectory import load_tum
+        from sift_parallel_optimization.utils.trajectory import load_tum
 
         p = tmp_path / "bad.txt"
         p.write_text("# header only\n1.0 2.0 3.0\n")
@@ -124,8 +124,8 @@ class TestTumFormat:
 def test_sequence_dir_ate_gate(tmp_path, capsys):
     """cli sfm --image-dir <PNG sequence> --groundtruth <TUM file>: the
     full real-data path must recover the trajectory within 3% of span."""
-    from sift_parallel_optimization_tpu.cli import main
-    from sift_parallel_optimization_tpu.utils.trajectory import save_tum
+    from sift_parallel_optimization.cli import main
+    from sift_parallel_optimization.utils.trajectory import save_tum
 
     size, n = 256, 8
     focal = float(size)
@@ -159,8 +159,8 @@ class TestKittiFormat:
     def test_save_load_roundtrip(self, tmp_path, rng):
         import jax.numpy as jnp
 
-        from sift_parallel_optimization_tpu.models.geometry import rodrigues
-        from sift_parallel_optimization_tpu.utils.trajectory import (
+        from sift_parallel_optimization.models.geometry import rodrigues
+        from sift_parallel_optimization.utils.trajectory import (
             camera_centers,
             load_kitti,
             save_kitti,
@@ -182,7 +182,7 @@ class TestKittiFormat:
         np.testing.assert_allclose(rots, r_expected, atol=1e-5)
 
     def test_load_rejects_garbage(self, tmp_path):
-        from sift_parallel_optimization_tpu.utils.trajectory import (
+        from sift_parallel_optimization.utils.trajectory import (
             load_kitti,
         )
 
@@ -196,8 +196,8 @@ class TestKittiFormat:
 def test_cli_save_traj_and_kitti_gate(tmp_path, capsys):
     """cli sfm --save-traj round-trips through BOTH formats, and a
     KITTI-format ground truth gates ATE (frame-indexed association)."""
-    from sift_parallel_optimization_tpu.cli import main
-    from sift_parallel_optimization_tpu.utils.trajectory import (
+    from sift_parallel_optimization.cli import main
+    from sift_parallel_optimization.utils.trajectory import (
         load_kitti,
         load_tum,
     )

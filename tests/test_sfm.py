@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.models.frontend import Features
-from sift_parallel_optimization_tpu.models.geometry import project, rodrigues
-from sift_parallel_optimization_tpu.models.keypoints import Keypoints
-from sift_parallel_optimization_tpu.models.sfm import run_sfm
-from sift_parallel_optimization_tpu.models.ba import rms_error
-from sift_parallel_optimization_tpu.utils.trajectory import (
+from sift_parallel_optimization.models.frontend import Features
+from sift_parallel_optimization.models.geometry import project, rodrigues
+from sift_parallel_optimization.models.keypoints import Keypoints
+from sift_parallel_optimization.models.sfm import run_sfm
+from sift_parallel_optimization.models.ba import rms_error
+from sift_parallel_optimization.utils.trajectory import (
     ate_rmse,
     camera_centers,
     umeyama_alignment,

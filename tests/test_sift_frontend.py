@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sift_parallel_optimization_tpu.models.detect import detect_pyramid
-from sift_parallel_optimization_tpu.models.frontend import (
+from sift_parallel_optimization.models.detect import detect_pyramid
+from sift_parallel_optimization.models.frontend import (
     extract_features,
     sift_config,
 )
-from sift_parallel_optimization_tpu.core.pyramid_ref import sift_dog_pyramid
+from sift_parallel_optimization.core.pyramid_ref import sift_dog_pyramid
 
 
 def blob_image(size, centers_sigmas, sign=-1.0):
@@ -76,13 +76,12 @@ class TestDetect:
 
 
 class TestApproxTopK:
-    """Exercise the TPU-only approx_max_k extraction branch ON CPU.
+    """Exercise the approximate (block-reduce) extraction branch.
 
-    ``use_approx_topk=True`` forces the branch the TPU takes by default
-    (models/detect.py) — it runs on CPU, just without the speed win — so
-    the 1%-recall divergence class is guarded by the suite, not only by
-    the on-hardware sanity gate (tools/tpu_sanity.py adds the direct
-    recall measurement on a real DoG score volume).
+    ``use_approx_topk=True`` selects the block-reduce + approx_max_k
+    extraction (models/detect.py), so the recall-divergence class is
+    guarded by the suite; chip_smoke.py measures the same recall on the
+    card at 512^2 / K=512.
     """
 
     def _textured(self, size=256, seed=0):
@@ -146,7 +145,7 @@ class TestFusedDetection:
 
     @pytest.mark.parametrize("refine", [0, 1, 2])
     def test_fused_equals_per_octave_union(self, refine):
-        from sift_parallel_optimization_tpu.models.detect import detect_octave
+        from sift_parallel_optimization.models.detect import detect_octave
 
         size = 256
         cfg = sift_config(size)
@@ -301,7 +300,7 @@ class TestBatchedDetection:
 
     @pytest.mark.parametrize("refine", [0, 1])
     def test_batched_detect_equals_per_frame(self, refine):
-        from sift_parallel_optimization_tpu.models.detect import (
+        from sift_parallel_optimization.models.detect import (
             detect_pyramid_batched,
         )
 
@@ -332,7 +331,7 @@ class TestBatchedDetection:
                 )
 
     def test_batched_frontend_matches_per_frame(self):
-        from sift_parallel_optimization_tpu.parallel.frontend import (
+        from sift_parallel_optimization.parallel.frontend import (
             batched_extract_features,
         )
 
@@ -411,15 +410,14 @@ def test_adaptive_hop_knob():
     """adaptive_hop (round-5 measured-negative study, default OFF): the
     conditional extra refit round must never LOSE keypoints, must leave
     all fields finite, and with the default off the output is bitwise
-    the round-4 path. Measured on chip: +0.10 ms at 512^2 on the noise
-    bench (the cond fires — the ROADMAP's 'helps real images, not the
-    noise bench' hypothesis was wrong) while recovering ~no candidates;
-    kept as an opt-in knob for escape-rich captures."""
-    from sift_parallel_optimization_tpu.core.pyramid_ref import (
+    the previous path. On noise frames the cond fires on nearly every
+    frame while recovering ~no candidates; kept as an opt-in knob for
+    escape-rich captures."""
+    from sift_parallel_optimization.core.pyramid_ref import (
         sift_gaussian_pyramid,
     )
-    from sift_parallel_optimization_tpu.models.detect import detect_pyramid
-    from sift_parallel_optimization_tpu.models.frontend import sift_config
+    from sift_parallel_optimization.models.detect import detect_pyramid
+    from sift_parallel_optimization.models.frontend import sift_config
 
     cfg = sift_config(128)
     img = jnp.asarray(
@@ -440,3 +438,20 @@ def test_adaptive_hop_knob():
     np.testing.assert_array_equal(
         np.asarray(on.x)[bv], np.asarray(base.x)[bv]
     )
+
+
+def test_detect_default_is_exact_topk():
+    """The detection default is one setting for every backend: the exact
+    top-k path, keypoint for keypoint."""
+    cfg = sift_config(128)
+    img = blob_image(
+        128, [(30.0, 40.0, 3.0), (80.0, 90.0, 5.0), (100.0, 30.0, 2.5)]
+    )
+    dogs = sift_dog_pyramid(img, cfg)
+    kp_default = jax.tree.map(np.asarray, detect_pyramid(dogs, cfg, 64))
+    kp_exact = jax.tree.map(
+        np.asarray, detect_pyramid(dogs, cfg, 64, use_approx_topk=False)
+    )
+    assert kp_default.valid.sum() >= 3
+    for a, b in zip(kp_default, kp_exact):
+        np.testing.assert_array_equal(a, b)
